@@ -1,11 +1,11 @@
-"""bulletproofs_r1cs_gadgets_tpu: a TPU-native Bulletproofs R1CS proving
+"""bulletproofs_r1cs_gadgets_tpu: an accelerator Bulletproofs R1CS proving
 framework with the full gadget zoo of lovesh/bulletproofs-r1cs-gadgets.
 
 Layers (bottom up, mirroring SURVEY.md S1):
   core/     -- proof engine: scalar field, ristretto group, Merlin transcript,
                R1CS prover/verifier, inner-product argument (L0)
-  ops/      -- TPU compute primitives: limb field kernels, curve kernels,
-               Pippenger MSM, batched Poseidon/MiMC (pallas/jnp)
+  ops/      -- device compute (jax.numpy): limb field arithmetic, curve
+               arithmetic, windowed MSM, batched Poseidon; DeviceBackend
   gadgets/  -- R1CS gadget zoo (L1-L3)
   models/   -- authenticated data structures: sparse Merkle trees (L4)
   parallel/ -- mesh sharding + batched proving

@@ -8,7 +8,8 @@ challenge ``u``.
 The prover-side folding (2n full-width point multiplications over log n
 rounds) is the hot path of proving; when a device backend is attached (see
 :mod:`bulletproofs_r1cs_gadgets_tpu.ops.msm`) the vector folds and L/R MSMs
-run batched on TPU and only the 64-byte transcript interaction stays on host.
+run batched on the device and only the 64-byte transcript interaction stays
+on the host.
 """
 
 from __future__ import annotations

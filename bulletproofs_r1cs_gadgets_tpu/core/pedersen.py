@@ -11,10 +11,9 @@ Mirrors the dalek-bulletproofs generator derivation the reference depends on
   ``b'H' || LE32(party)``.  The reference always passes ``party_capacity=1``
   and capacities 128 / 2048 / 819200 (``gadget_vsmt_2.rs:290``).
 
-Deriving 819200 generators needs ~1.6M Elligator maps; the batched TPU path
-(:func:`bulletproofs_r1cs_gadgets_tpu.ops.curve.from_uniform_bytes_batch`) is
-used when available and results are cached on disk as numpy arrays of the
-extended Edwards coordinates.
+Deriving 819200 generators needs ~1.6M Elligator maps; the C++ batch map
+(``ge_from_uniform_batch``) is used when available and results are cached
+on disk as numpy arrays of the extended Edwards coordinates.
 """
 
 from __future__ import annotations
@@ -171,7 +170,7 @@ def _points_from_array(arr: np.ndarray) -> list[RistrettoPoint]:
 
 def _u16_to_limbs_i32(arr: np.ndarray) -> np.ndarray:
     """(n, 4, 16) u16 coordinate array -> (n, 4, 23) int32 12-bit limbs
-    (the TPU kernels' field layout), fully vectorized."""
+    (the device field layout, ops/field.py), fully vectorized."""
     n = arr.shape[0]
     b = np.ascontiguousarray(arr, dtype="<u2").view(np.uint8)  # (n, 4, 32)
     w = np.concatenate(
@@ -190,7 +189,7 @@ class BulletproofGens:
     """Generator vectors for the R1CS/IPP engine (dalek layout).
 
     Coordinates are held as (n, 4, 16) uint16 numpy arrays; Python point
-    objects (host MSM paths) and TPU limb arrays (device upload paths) are
+    objects (host MSM paths) and device limb arrays (device upload paths) are
     materialized lazily and memoized.
     """
 

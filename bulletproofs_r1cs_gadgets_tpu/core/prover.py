@@ -23,7 +23,7 @@ Protocol (two-phase, Fiat-Shamir over Merlin):
 6. inner-product argument over 2 * padded_n folded generators.
 
 The heavy vector math of steps 2, 5, 6 routes through an optional *device
-backend* (TPU, :mod:`bulletproofs_r1cs_gadgets_tpu.ops.backend`); the host
+backend* (:mod:`bulletproofs_r1cs_gadgets_tpu.ops.backend`); the host
 path below is the exact reference implementation.
 """
 
@@ -371,7 +371,6 @@ class Prover:
             ipp = backend.ipp_create(
                 t, mid["Q"], mid["G_factors"], mid["H_factors"],
                 gens, mid["padded_n"], mid["l_vec"], mid["r_vec"],
-                mid["ipp_meta"],
             )
         else:
             from .ipp import _skip_domain_sep
@@ -564,11 +563,6 @@ class Prover:
             Q=Q,
             G_factors=G_factors,
             H_factors=H_factors,
-            # structure of the factor vectors (G_factors piecewise at n1,
-            # H_factors x a geometric y^-i; l_vec zero beyond n): lets the
-            # device IPP fold generators by per-round constants and track
-            # the factors host-side (ops/pallas_backend._IppJob)
-            ipp_meta=dict(n1=n1, n_real=n, u=u, y_inv=y_inv),
             l_vec=l_vec,
             r_vec=r_vec,
             fields=(

@@ -8,7 +8,7 @@ from ``from_uniform_bytes`` (SHAKE-256 XOF) and ``hash_from_bytes::<Sha3_512>``.
 
 Formulas follow RFC 9496 (ristretto255) and the extended-coordinate Edwards
 addition laws (Hisil-Wong-Carter-Dawson 2008, as in curve25519-dalek).  The
-hot batched/MSM path runs on TPU via :mod:`bulletproofs_r1cs_gadgets_tpu.ops.curve`;
+hot batched/MSM path runs on the device via :mod:`bulletproofs_r1cs_gadgets_tpu.ops.curve`;
 this module is the exact host reference and handles small/latency-bound work.
 """
 
@@ -268,7 +268,7 @@ class FixedBaseTable:
 def multiscalar_mul(scalars, points) -> RistrettoPoint:
     """Host Pippenger MSM (variable time).
 
-    Used for small MSMs and as the reference oracle for the TPU MSM kernels
+    Used for small MSMs and as the reference oracle for the device MSM
     (:mod:`..ops.msm`).  Window size picked from problem size like dalek.
     """
     scalars = list(scalars)

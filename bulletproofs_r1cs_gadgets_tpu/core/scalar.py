@@ -7,8 +7,8 @@ the reference gadgets (``from(u64)``, ``from_bits``, ``from_bytes_mod_order``,
 32-byte little-endian codec).
 
 Host values are arbitrary-precision ints reduced mod L; the batched/device
-representation used by the TPU compute path lives in
-:mod:`bulletproofs_r1cs_gadgets_tpu.ops.field` (16 x 16-bit limb arrays) with
+representation used by the device compute path lives in
+:mod:`bulletproofs_r1cs_gadgets_tpu.ops.field` (23 x 12-bit limb arrays) with
 exact conversions both ways.
 
 Non-canonical values: dalek's ``Scalar::from_bits`` stores raw 255-bit strings

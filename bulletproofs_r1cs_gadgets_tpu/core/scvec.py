@@ -5,10 +5,9 @@ polynomials, IPP folds, inner products — SURVEY.md S2b N6/N7) as Rust
 iterator chains over ``Scalar``.  Round 1 ported those as Python loops over
 ``Scalar`` objects, which made the warm prove ~40% host Python.  This module
 is the replacement: scalars are rows of a little-endian 4x64-bit limb array,
-and the loops run in C (``native/bptpu_native.cpp``).  The same layout
-reinterprets as ``(n, 8) uint32`` little-endian words — exactly the packed
-scalar format the Pallas MSM kernels consume (``ops/pallas_curve.words_matrix``)
-— so device uploads become zero-copy views.
+and the loops run in C (``native/bptpu_native.cpp``).  The device MSM
+splits these rows into window digits with one vectorised byte-view
+(``ops/msm.scalars_to_digits``).
 
 A pure-Python fallback keeps every op available when the native library
 cannot build; it is exact (int math) but slow.
@@ -83,13 +82,6 @@ def row_to_scalar(row: np.ndarray) -> Scalar:
 
 def zeros(n: int) -> np.ndarray:
     return np.zeros((n, 4), dtype=np.uint64)
-
-
-def words_u32(arr: np.ndarray) -> np.ndarray:
-    """(n, 4) u64 -> (n, 8) u32 little-endian words (zero-copy on LE hosts);
-    matches ``ops.pallas_curve.words_matrix`` output exactly."""
-    a = np.ascontiguousarray(arr, dtype="<u8")
-    return a.view("<u4").reshape(arr.shape[0], 8)
 
 
 # ------------------------------------------------------------- vector ops

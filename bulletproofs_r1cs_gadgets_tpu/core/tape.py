@@ -4,7 +4,7 @@ arrays, and C-speed flattening by powers of the challenge z.
 The dalek engine flattens constraints per proof (``flattened_constraints``
 in its r1cs prover/verifier); the tape itself is witness-independent, so
 this lowering happens once per synthesized circuit and is reused across
-proofs of the same shape (VERDICT round-1 item: tape caching).  Layout per
+proofs of the same shape (tape caching).  Layout per
 wire class: ``cidx[t]`` (constraint index -> z power), ``widx[t]`` (wire
 index), ``coeff[t]`` ((m, 4) u64 rows); committed-wire and constant terms
 store negated coefficients because both the prover's wV and the verifier's

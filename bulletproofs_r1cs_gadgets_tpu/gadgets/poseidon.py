@@ -10,7 +10,7 @@ Reference: ``/root/reference/src/gadget_poseidon.rs``:
   4:1 hash :488-551 ([0, i0..i3, PAD]); PADDING_CONST = 101 :425
 * static commitments (to 0 / PAD with blinding 0) :554-608
 
-The native permutation is duplicated as a batched TPU kernel in
+The native permutation is duplicated as a batched device program in
 :mod:`bulletproofs_r1cs_gadgets_tpu.ops.poseidon` (used for bulk tree
 updates); this host version is its correctness oracle.
 """

@@ -5,7 +5,7 @@ LinearCombination algebra (``gadget_vsmt_2.rs:171-209`` +
 ``gadget_poseidon.rs:282-399``) — a per-proof cost that round 1 measured at
 ~350 s of Python for depth 253.  But the tape is *witness-independent* and
 every tree level is structurally identical (same MDS/round-key coefficients,
-indices shifted by a constant): the TPU-first design is therefore
+indices shifted by a constant): the design is therefore
 compile-once/stamp-many:
 
 1. **Record**: run the unmodified gadget code for two consecutive levels on

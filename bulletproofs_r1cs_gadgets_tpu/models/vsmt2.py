@@ -12,8 +12,8 @@ default (``constrain_index_bits=True``) while allowing exact reference parity
 with ``constrain_index_bits=False``.
 
 The host tree runs on the host Poseidon (each ``update`` is a strictly
-sequential 253-level hash chain — no batch to exploit); the batched TPU
-Poseidon kernel (:class:`..ops.poseidon.DevicePoseidon`) serves the
+sequential 253-level hash chain — no batch to exploit); the batched device
+Poseidon (:class:`..ops.poseidon.DevicePoseidon`) serves the
 demo pipeline and bulk witness hashing, not this tree.
 """
 

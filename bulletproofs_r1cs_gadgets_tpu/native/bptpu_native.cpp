@@ -2,7 +2,7 @@
 //
 // The reference stack's host-side hot loops live in Rust (curve25519-dalek
 // Scalar arithmetic, merlin's keccak; SURVEY.md S2b N1/N8).  This file is
-// their C++ equivalent for the rebuild: the TPU owns the batched proof
+// their C++ equivalent for the rebuild: the device owns the batched proof
 // math, while the host owns transcripts and sparse-Merkle-tree maintenance
 // (SURVEY.md CS-5: 253 sequential Poseidon hashes per tree update), which
 // are latency- not throughput-bound and therefore belong on CPU.
@@ -13,7 +13,7 @@
 //
 // Field arithmetic: 4x64-bit limbs with unsigned __int128 products,
 // reduction mod L = 2^252 + C by folding 2^252 == -C three times
-// (mirrors the TPU kernel's fold strategy in ops/field.py, so both sides
+// (mirrors the device fold strategy in ops/field.py, so both sides
 // are testable against each other).
 
 #include <cstdint>
@@ -336,8 +336,8 @@ void sc_inv(const u64 a[4], u64 out[4]) {
 // These back the prover's hot O(n) loops (l/r polynomial construction, IPP
 // scalar folds, inner products, constraint flattening) that the dalek
 // engine runs as Rust iterator chains; here they are host C++ so Python
-// never loops over 2^18 scalars (VERDICT round-1 "warm prove is ~40% host
-// Python").
+// never loops over 2^18 scalars (as Python loops they made the warm prove
+// ~40% host Python).
 
 using i64 = long long;
 

@@ -1,4 +1,4 @@
-"""TPU compute primitives (jnp/XLA + Pallas).
+"""Device compute primitives (jax.numpy programs compiled by XLA).
 
 Importing this package configures the persistent JAX compilation cache
 (see utils/jaxcfg) - the proof kernels are large graphs worth caching.

@@ -1,19 +1,19 @@
-"""Device (TPU) backend for the proof engine.
+"""Device backend for the proof engine.
 
-The Prover/Verifier/IPP accept an optional ``backend`` whose methods route
-the MSM-heavy steps to the TPU kernels in :mod:`.curve` / :mod:`.msm`:
+The Prover/Verifier/IPP accept an optional ``backend``; this one runs the
+MSM-heavy steps as plain jax.numpy programs (:mod:`.curve`, :mod:`.msm`)
+that XLA compiles for the accelerator:
 
 * ``phase_commitments`` - the prover's A_I1/A_O1/S1 vector commitments.
 * ``ipp_create`` - the inner-product argument: L/R MSMs and the generator
   folds run on device; only the 64-byte transcript exchange (append L, R;
-  draw u) round-trips to the host, mirroring how production GPU provers
-  split transcript and compute.
-* ``msm`` - the verifier's single mega-MSM.
+  draw u) round-trips to the host.
+* ``msm`` / ``msm_gens`` - the verifier's single combined MSM.
 
-Scalar-side folds (sizes n, n/2, ...) stay host-side: they are O(n) modmuls
-against the device's O(n * 253) point work, and keeping them on host avoids
-canonicalisation round trips.  Small circuits fall back to the host path
-entirely (device dispatch overhead dominates below ~2^9 points).
+Scalar-side folds (sizes n, n/2, ...) stay on the host in the C++ ``scvec``
+layer: they are O(n) modmuls against the device's O(n * 253) point work.
+Circuits below ``min_device_n`` points run entirely on the host, where
+device dispatch overhead would dominate.
 
 Generator vectors are uploaded once per (gens, capacity) and cached.
 """
@@ -26,11 +26,9 @@ from jax import lax
 
 import numpy as np
 
-from ..core.scalar import Scalar, inner_product
 from ..core import scvec
-from ..core.ristretto import RistrettoPoint
+from ..core.ristretto import RistrettoPoint, multiscalar_mul
 from ..core.ipp import InnerProductProof, _skip_domain_sep
-from ..utils.constants import L
 from .curve import (
     point_add,
     point_double,
@@ -39,15 +37,32 @@ from .curve import (
     points_to_device,
     points_from_device,
 )
-from .msm import msm_device, MsmEngine
+from .msm import CHUNK, WINDOW, msm_device
 
 from ..utils.config import DEFAULT_CONFIG
 
 MIN_DEVICE_N = DEFAULT_CONFIG.engine.min_device_n
+FOLD_CHUNK = 1 << 10  # points per compiled generator-fold call
 
 
-def _bits_arr(x: int, nbits: int = 253) -> np.ndarray:
-    return np.asarray([(x >> i) & 1 for i in range(nbits)], dtype=np.int32)
+def _rows(x) -> np.ndarray:
+    """Scalars as (n, 4) u64 ``scvec`` rows (arrays pass through)."""
+    if isinstance(x, np.ndarray):
+        return np.ascontiguousarray(x)
+    return scvec.from_scalars(list(x))
+
+
+def _bits_rows(rows: np.ndarray) -> np.ndarray:
+    """(n, 4) u64 scalar rows -> (n, 253) uint8 LSB-first bit matrix (one
+    vectorised byte-view unpack)."""
+    b = np.ascontiguousarray(rows, dtype="<u8").view(np.uint8)
+    bits = np.unpackbits(b.reshape(len(rows), 32), axis=1, bitorder="little")
+    return bits[:, :253]
+
+
+def _bits_arr(s) -> np.ndarray:
+    """(253,) LSB-first bits of one scalar (a Scalar or an int)."""
+    return _bits_rows(scvec.scalar_to_row(s)[None])[0]
 
 
 @jax.jit
@@ -81,12 +96,73 @@ def fold_points(
     return acc
 
 
-class DeviceBackend:
-    """Routes the engine's heavy vector math to TPU kernels."""
+@jax.jit
+def _fold_with_scalars_jit(left, right, bits_l, bits_r):
+    """Per-element double-scalar fold with distinct scalars (the first IPP
+    round folds the outer G/H factors in): bits (n, 253) LSB-first."""
+    nbits = bits_l.shape[-1]
 
-    def __init__(self, min_device_n: int = MIN_DEVICE_N):
-        self.engine = MsmEngine()
+    def body(acc, i):
+        acc = point_double(acc)
+        ident = jnp.broadcast_to(identity_points(()), left.shape)
+        add_l = point_select(bits_l[:, nbits - 1 - i] > 0, left, ident)
+        add_r = point_select(bits_r[:, nbits - 1 - i] > 0, right, ident)
+        return point_add(point_add(acc, add_l), add_r), None
+
+    ident = jnp.broadcast_to(identity_points(()), left.shape)
+    acc, _ = lax.scan(body, ident, jnp.arange(nbits))
+    return acc
+
+
+def _pad_points_to(arr: jnp.ndarray, size: int) -> jnp.ndarray:
+    n = arr.shape[0]
+    if n == size:
+        return arr
+    pad = jnp.broadcast_to(identity_points(()), (size - n, 4, arr.shape[-1]))
+    return jnp.concatenate([arr, pad], axis=0)
+
+
+def _run_fold(jit_fn, size: int, left, right, *bit_args):
+    """Apply a per-element fold in ``size``-shaped pieces; a bit argument
+    is either shared (253,) or per element (n, 253)."""
+    n = left.shape[0]
+    outs = []
+    for off in range(0, n, size):
+        hi = min(off + size, n)
+        bits = []
+        for b in bit_args:
+            if b.ndim == 1:
+                bits.append(b)
+            else:
+                pad = np.zeros((size - (hi - off), b.shape[1]), b.dtype)
+                bits.append(jnp.asarray(np.concatenate([b[off:hi], pad])))
+        outs.append(jit_fn(
+            _pad_points_to(left[off:hi], size),
+            _pad_points_to(right[off:hi], size),
+            *bits,
+        )[: hi - off])
+    return jnp.concatenate(outs, axis=0) if len(outs) > 1 else outs[0]
+
+
+class DeviceBackend:
+    """Routes the engine's heavy vector math to the device.
+
+    ``chunk`` and ``window`` shape the compiled MSM (see :mod:`.msm`),
+    ``fold_chunk`` the compiled generator fold; the defaults are the
+    production shapes, and tests pass small ones to keep CPU compiles
+    short."""
+
+    def __init__(
+        self,
+        min_device_n: int = MIN_DEVICE_N,
+        chunk: int = CHUNK,
+        window: int = WINDOW,
+        fold_chunk: int = FOLD_CHUNK,
+    ):
         self.min_device_n = min_device_n
+        self.chunk = chunk
+        self.window = window
+        self.fold_chunk = fold_chunk
         self._gens_cache: dict = {}
 
     # ------------------------------------------------------------- helpers
@@ -102,30 +178,36 @@ class DeviceBackend:
             self._gens_cache[key] = cached
         return cached[:n]
 
-    def _msm_dev(self, scalars, dev: jnp.ndarray) -> jnp.ndarray:
+    def _msm_dev(self, rows: np.ndarray, dev: jnp.ndarray) -> jnp.ndarray:
         """Device MSM hook; ShardedMsmBackend overrides this to partition
         the point axis over a mesh (parallel/sharded_backend.py)."""
-        return msm_device(scalars, dev)
+        return msm_device(rows, dev, self.chunk, self.window)
+
+    def _fold(self, left, right, s_left, s_right) -> jnp.ndarray:
+        """s_left[i] * left[i] + s_right[i] * right[i]; the scalars are
+        either one Scalar each (shared by every element) or (n, 4) rows."""
+        if isinstance(s_left, np.ndarray):
+            return _run_fold(
+                _fold_with_scalars_jit, self.fold_chunk, left, right,
+                _bits_rows(s_left), _bits_rows(s_right),
+            )
+        return _run_fold(
+            fold_points, self.fold_chunk, left, right,
+            jnp.asarray(_bits_arr(s_left)), jnp.asarray(_bits_arr(s_right)),
+        )
 
     def msm(self, scalars, points: list[RistrettoPoint]) -> RistrettoPoint:
-        if isinstance(scalars, np.ndarray):
-            if len(scalars) < self.min_device_n:
-                from ..core.ristretto import multiscalar_mul
-
-                return multiscalar_mul(scvec.to_scalars(scalars), points)
-            return points_from_device(
-                self._msm_dev(scalars, points_to_device(points))
-            )[0]
         if len(scalars) < self.min_device_n:
-            from ..core.ristretto import multiscalar_mul
-
+            if isinstance(scalars, np.ndarray):
+                scalars = scvec.to_scalars(scalars)
             return multiscalar_mul(scalars, points)
-        dev = points_to_device(points)
-        return points_from_device(self._msm_dev([s.v for s in scalars], dev))[0]
+        return points_from_device(
+            self._msm_dev(_rows(scalars), points_to_device(points))
+        )[0]
 
     # ------------------------------------------------------ batched variants
-    # Loop fallbacks so any backend accepts batch jobs; PallasBackend
-    # overrides these with fused single-sync dispatch (the TPU fast path).
+    # Loop fallbacks so any backend accepts batch jobs;
+    # BatchShardedBackend overrides these with SPMD dispatch.
     def phase_commitments_batch(self, jobs: list[tuple]) -> list[tuple]:
         return [self.phase_commitments(*job) for job in jobs]
 
@@ -135,8 +217,8 @@ class DeviceBackend:
     def msm_gens(
         self, scalars, head_points, gens_share, padded_n, tail_points
     ) -> RistrettoPoint:
-        """Verifier mega-MSM with the generator segment read from the
-        device cache (see PallasBackend.msm_gens)."""
+        """Verifier combined MSM with the generator segment read from the
+        device cache."""
         nh, nt = len(head_points), len(tail_points)
         total = nh + 2 * padded_n + nt
         if total < self.min_device_n:
@@ -148,8 +230,6 @@ class DeviceBackend:
             )
             if isinstance(scalars, np.ndarray):
                 scalars = scvec.to_scalars(scalars)
-            from ..core.ristretto import multiscalar_mul
-
             return multiscalar_mul(scalars, pts)
         dev = jnp.concatenate(
             [
@@ -160,26 +240,20 @@ class DeviceBackend:
             ],
             axis=0,
         )
-        return points_from_device(self._msm_dev(scalars, dev))[0]
+        return points_from_device(self._msm_dev(_rows(scalars), dev))[0]
 
     # -------------------------------------------------- prover commitments
     def phase_commitments(
         self, gens_share, a_L, a_R, a_O, s_L, s_R,
         i_blinding, o_blinding, s_blinding, B_blinding, offset,
     ):
-        # accept (n, 4) u64 arrays (the engine's native layout) or lists
-        if isinstance(a_L, np.ndarray):
-            a_L = scvec.to_scalars(a_L)
-            a_R = scvec.to_scalars(a_R)
-            a_O = scvec.to_scalars(a_O)
-            s_L = scvec.to_scalars(s_L)
-            s_R = scvec.to_scalars(s_R)
         n = len(a_L)
         if n < self.min_device_n:
-            from ..core.ristretto import multiscalar_mul
-
             G = gens_share.G(offset + n)[offset:]
             H = gens_share.H(offset + n)[offset:]
+            a_L, a_R, a_O, s_L, s_R = (
+                scvec.to_scalars(_rows(v)) for v in (a_L, a_R, a_O, s_L, s_R)
+            )
             A_I = multiscalar_mul(
                 [i_blinding] + a_L + a_R, [B_blinding] + G + H
             ).compress()
@@ -193,46 +267,42 @@ class DeviceBackend:
         H_dev = self._gens_device(gens_share, offset + n, "H")[offset:]
         B_dev = points_to_device([B_blinding])
         GH = jnp.concatenate([B_dev, G_dev, H_dev], axis=0)
-        A_I = self._msm_dev(
-            [i_blinding.v] + [s.v for s in a_L] + [s.v for s in a_R], GH
-        )
+
+        def rows(blinding, *vecs):
+            return np.concatenate(
+                [scvec.scalar_to_row(blinding)[None]] + [_rows(v) for v in vecs]
+            )
+
+        A_I = self._msm_dev(rows(i_blinding, a_L, a_R), GH)
         A_O = self._msm_dev(
-            [o_blinding.v] + [s.v for s in a_O],
-            jnp.concatenate([B_dev, G_dev], axis=0),
+            rows(o_blinding, a_O), jnp.concatenate([B_dev, G_dev], axis=0)
         )
-        S = self._msm_dev(
-            [s_blinding.v] + [s.v for s in s_L] + [s.v for s in s_R], GH
-        )
+        S = self._msm_dev(rows(s_blinding, s_L, s_R), GH)
         pts = points_from_device(jnp.stack([A_I, A_O, S], axis=0))
         return pts[0].compress(), pts[1].compress(), pts[2].compress()
 
     # ------------------------------------------------------------------ IPP
     def ipp_create(
         self, transcript, Q, G_factors, H_factors, gens_share, padded_n,
-        a, b, meta=None,
+        a, b,
     ) -> InnerProductProof:
-        # `meta` (factor-vector structure, core/prover.py ipp_meta) is only
-        # exploited by PallasBackend; this oracle folds explicitly.
-        # accept (n, 4) u64 arrays or Scalar lists; this backend is the
-        # CPU-testable oracle, so it normalizes to lists and keeps the
-        # straightforward flow
-        if isinstance(a, np.ndarray):
-            G_factors = scvec.to_scalars(G_factors)
-            H_factors = scvec.to_scalars(H_factors)
-            a = scvec.to_scalars(a)
-            b = scvec.to_scalars(b)
+        """The dalek schedule (round-1 folds carry the outer G/H factors,
+        later rounds fold by the bare challenge), as in
+        ``InnerProductProof.create``."""
         n = padded_n
         if n < self.min_device_n:
+            G_factors, H_factors, a, b = (
+                scvec.to_scalars(_rows(v)) for v in (G_factors, H_factors, a, b)
+            )
             return InnerProductProof.create(
                 _skip_domain_sep(transcript), Q, G_factors, H_factors,
                 gens_share.G(n), gens_share.H(n), a, b,
             )
 
-        G_dev = self._gens_device(gens_share, n, "G")
-        H_dev = self._gens_device(gens_share, n, "H")
+        a, b, GF, HF = (_rows(v) for v in (a, b, G_factors, H_factors))
+        G = self._gens_device(gens_share, n, "G")
+        H = self._gens_device(gens_share, n, "H")
         Q_dev = points_to_device([Q])
-        a = list(a)
-        b = list(b)
         L_vec: list[bytes] = []
         R_vec: list[bytes] = []
         first = True
@@ -240,26 +310,22 @@ class DeviceBackend:
             n //= 2
             a_L, a_R = a[:n], a[n:]
             b_L, b_R = b[:n], b[n:]
-            c_L = inner_product(a_L, b_R)
-            c_R = inner_product(a_R, b_L)
+            c_L = scvec.scalar_to_row(scvec.inner(a_L, b_R))[None]
+            c_R = scvec.scalar_to_row(scvec.inner(a_R, b_L))[None]
             if first:
-                sc_L = (
-                    [(a_L[i] * G_factors[n + i]).v for i in range(n)]
-                    + [(b_R[i] * H_factors[i]).v for i in range(n)]
-                    + [c_L.v]
-                )
-                sc_R = (
-                    [(a_R[i] * G_factors[i]).v for i in range(n)]
-                    + [(b_L[i] * H_factors[n + i]).v for i in range(n)]
-                    + [c_R.v]
-                )
+                sc_L = [scvec.mul(a_L, GF[n:]), scvec.mul(b_R, HF[:n]), c_L]
+                sc_R = [scvec.mul(a_R, GF[:n]), scvec.mul(b_L, HF[n:]), c_R]
             else:
-                sc_L = [s.v for s in a_L] + [s.v for s in b_R] + [c_L.v]
-                sc_R = [s.v for s in a_R] + [s.v for s in b_L] + [c_R.v]
-            pts_L = jnp.concatenate([G_dev[n:], H_dev[:n], Q_dev], axis=0)
-            pts_R = jnp.concatenate([G_dev[:n], H_dev[n:], Q_dev], axis=0)
-            L_pt = self._msm_dev(sc_L, pts_L)
-            R_pt = self._msm_dev(sc_R, pts_R)
+                sc_L = [a_L, b_R, c_L]
+                sc_R = [a_R, b_L, c_R]
+            L_pt = self._msm_dev(
+                np.concatenate(sc_L),
+                jnp.concatenate([G[n:], H[:n], Q_dev], axis=0),
+            )
+            R_pt = self._msm_dev(
+                np.concatenate(sc_R),
+                jnp.concatenate([G[:n], H[n:], Q_dev], axis=0),
+            )
             L_c, R_c = (
                 p.compress() for p in points_from_device(jnp.stack([L_pt, R_pt]))
             )
@@ -269,88 +335,19 @@ class DeviceBackend:
             transcript.append_point(b"R", R_c)
             u = transcript.challenge_scalar(b"u")
             u_inv = u.invert()
-            a = [a_L[i] * u + u_inv * a_R[i] for i in range(n)]
-            b = [b_L[i] * u_inv + u * b_R[i] for i in range(n)]
-            u_bits = jnp.asarray(_bits_arr(u.v))
-            u_inv_bits = jnp.asarray(_bits_arr(u_inv.v))
+            a = scvec.axpby(a_L, u, a_R, u_inv)
+            b = scvec.axpby(b_L, u_inv, b_R, u)
             if first:
-                # fold the outer G/H factors in (one-off scaling)
-                gf = [s.v for s in G_factors]
-                hf = [s.v for s in H_factors]
-                ub = [(u_inv.v * gf[i]) % L for i in range(n)]
-                # apply combined scalars directly: G'_i = (u_inv*gf_i)G_L + (u*gf_{n+i})G_R
-                G_dev = _fold_with_scalars(
-                    G_dev[:n], G_dev[n:], [ (u_inv.v * gf[i]) % L for i in range(n)],
-                    [(u.v * gf[n + i]) % L for i in range(n)],
-                )
-                H_dev = _fold_with_scalars(
-                    H_dev[:n], H_dev[n:], [(u.v * hf[i]) % L for i in range(n)],
-                    [(u_inv.v * hf[n + i]) % L for i in range(n)],
-                )
+                # fold the outer G/H factors in (one-off per-element scalars)
+                G = self._fold(G[:n], G[n:], scvec.scale(GF[:n], u_inv),
+                               scvec.scale(GF[n:], u))
+                H = self._fold(H[:n], H[n:], scvec.scale(HF[:n], u),
+                               scvec.scale(HF[n:], u_inv))
                 first = False
             else:
-                G_dev = _run_fold(
-                    fold_points, G_dev[:n], G_dev[n:], u_inv_bits, u_bits
-                )
-                H_dev = _run_fold(
-                    fold_points, H_dev[:n], H_dev[n:], u_bits, u_inv_bits
-                )
-        return InnerProductProof(L_vec, R_vec, a[0], b[0])
-
-
-FOLD_CHUNK = 1 << 10
-
-
-def _pad_points_to(arr: jnp.ndarray, size: int) -> jnp.ndarray:
-    n = arr.shape[0]
-    if n == size:
-        return arr
-    pad = jnp.broadcast_to(identity_points(()), (size - n, 4, arr.shape[-1]))
-    return jnp.concatenate([arr, pad], axis=0)
-
-
-def _run_fold(jit_fn, left, right, *bit_args):
-    """Apply a per-element fold in FOLD_CHUNK-shaped pieces."""
-    n = left.shape[0]
-    outs = []
-    for off in range(0, n, FOLD_CHUNK):
-        hi = min(off + FOLD_CHUNK, n)
-        l_c = _pad_points_to(left[off:hi], FOLD_CHUNK)
-        r_c = _pad_points_to(right[off:hi], FOLD_CHUNK)
-        bits = []
-        for b in bit_args:
-            if b.ndim == 1:  # shared scalar bits
-                bits.append(b)
-            else:
-                pad = jnp.zeros((FOLD_CHUNK - (hi - off), b.shape[1]), b.dtype)
-                bits.append(jnp.concatenate([b[off:hi], pad], axis=0))
-        outs.append(jit_fn(l_c, r_c, *bits)[: hi - off])
-    return jnp.concatenate(outs, axis=0) if len(outs) > 1 else outs[0]
-
-
-def _fold_with_scalars(left, right, s_left: list[int], s_right: list[int]):
-    """Per-element double-scalar fold with distinct scalars (first IPP round
-    folds in the outer G/H factors)."""
-    bits_l = jnp.asarray(np.stack([_bits_arr(s) for s in s_left]))
-    bits_r = jnp.asarray(np.stack([_bits_arr(s) for s in s_right]))
-    return _run_fold(_fold_with_scalars_jit, left, right, bits_l, bits_r)
-
-
-@jax.jit
-def _fold_with_scalars_jit(left, right, bits_l, bits_r):
-    nbits = bits_l.shape[-1]
-
-    def body(acc, i):
-        acc = point_double(acc)
-        ident = jnp.broadcast_to(identity_points(()), left.shape)
-        add_l = point_select(bits_l[:, nbits - 1 - i] > 0, left, ident)
-        add_r = point_select(bits_r[:, nbits - 1 - i] > 0, right, ident)
-        return point_add(point_add(acc, add_l), add_r), None
-
-    ident = jnp.broadcast_to(identity_points(()), left.shape)
-    acc, _ = lax.scan(body, ident, jnp.arange(nbits))
-    return acc
-
-
-# moved to core.ipp (shared by all backends); kept as an alias
-from ..core.ipp import _SkipDomainSep  # noqa: E402,F401
+                G = self._fold(G[:n], G[n:], u_inv, u)
+                H = self._fold(H[:n], H[n:], u, u_inv)
+        return InnerProductProof(
+            L_vec, R_vec,
+            scvec.row_to_scalar(a[0]), scvec.row_to_scalar(b[0]),
+        )

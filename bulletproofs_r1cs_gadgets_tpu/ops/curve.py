@@ -1,4 +1,4 @@
-"""Batched Edwards-curve / ristretto255 point arithmetic for TPU.
+"""Batched Edwards-curve / ristretto255 point arithmetic on the device.
 
 Points are extended homogeneous coordinates stored as (..., 4, 23) int32
 limb arrays (X, Y, Z, T rows; see :mod:`.field` for the limb format).  The

@@ -1,8 +1,8 @@
-"""Batched big-integer field arithmetic for TPU (jnp/XLA; Pallas fast path in
-``ops/pallas_kernels.py``).
+"""Batched big-integer field arithmetic on the device (jax.numpy, compiled
+by XLA).
 
-Design (TPU-first; SURVEY.md S7 "hard parts (a)": bigint modular mul on
-32-bit integer lanes without 64-bit multiplies):
+Design (SURVEY.md S7 "hard parts (a)": bigint modular mul on 32-bit integer
+lanes without 64-bit multiplies):
 
 * A field element is a vector of ``STORE = 23`` signed int32 limbs in radix
   2^12, *balanced*: after normalisation every |limb| <= 2^11 (+1), so
@@ -13,8 +13,8 @@ Design (TPU-first; SURVEY.md S7 "hard parts (a)": bigint modular mul on
   < 2^253-ish); canonicalisation to [0, m) happens host-side at codec
   boundaries only.
 * Multiplication is a schoolbook limb convolution: |products| <= 2^22 and
-  anti-diagonal sums < 23 * 2^22 < 2^27 are exact in int32 - TPUs have no
-  64-bit multiply, and 12-bit limbs keep every intermediate in-lane.
+  anti-diagonal sums < 23 * 2^22 < 2^27 are exact in int32: 12-bit limbs
+  keep every intermediate in an int32 lane with no 64-bit multiply.
 * Reduction folds the product at a *limb-aligned* power of the radix:
   - mod L = 2^252 + c (scalar field): 2^252 is limb 21, and
     2^252 == -c (mod L) with c ~ 2^124.4 an 11-limb constant.
@@ -22,7 +22,7 @@ Design (TPU-first; SURVEY.md S7 "hard parts (a)": bigint modular mul on
     2^264 == 19 * 2^9 = 9728 (mod P), a single-limb constant.
   Folds repeat until the value provably fits the store; interleaved balanced
   carry rounds ((x + 2^11) >> 12 arithmetic shift) keep coefficients small.
-* Why not Montgomery: its per-digit dependency chain serialises on the VPU;
+* Why not Montgomery: its per-digit dependency chain serialises each lane;
   fold reduction is two short convolutions, fully parallel across the batch
   and across limbs.
 
@@ -77,30 +77,29 @@ def _carry(x: jnp.ndarray, extend: bool = True) -> jnp.ndarray:
     outgoing carry is never dropped."""
     carry = (x + HALF) >> LIMB_BITS
     rem = x - (carry << LIMB_BITS)
+    lead = [(0, 0)] * (x.ndim - 1)
     if extend:
-        carry_up = jnp.concatenate(
-            [jnp.zeros_like(carry[..., :1]), carry], axis=-1
-        )
-        rem = jnp.concatenate([rem, jnp.zeros_like(rem[..., :1])], axis=-1)
-        return rem + carry_up
-    carry_up = jnp.concatenate(
-        [jnp.zeros_like(carry[..., :1]), carry[..., :-1]], axis=-1
-    )
-    return rem + carry_up
+        return jnp.pad(rem, lead + [(0, 1)]) + jnp.pad(carry, lead + [(1, 0)])
+    return rem + jnp.pad(carry[..., :-1], lead + [(1, 0)])
 
 
 def _conv(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Limb convolution (..., n) x (..., m) -> (..., n+m-1), int32-exact for
-    balanced inputs."""
+    balanced inputs.
+
+    The (n, m) product matrix is skewed so that row i starts at column i
+    (pad each row by n zeros, flatten, drop the last n, reshape to width
+    n+m-1); a column sum then gives the anti-diagonal sums.  A handful of
+    ops per multiply keeps traced graphs, and so compile times, small."""
     n = a.shape[-1]
     m = b.shape[-1]
-    out_len = n + m - 1
+    if m == 1:
+        return a * b
     terms = a[..., :, None] * b[..., None, :]  # (..., n, m)
-    rows = []
-    for i in range(n):
-        pad = [(0, 0)] * (terms.ndim - 2) + [(i, out_len - m - i)]
-        rows.append(jnp.pad(terms[..., i, :], pad))
-    return sum(rows)
+    lead = terms.shape[:-2]
+    skew = jnp.pad(terms, [(0, 0)] * (terms.ndim - 1) + [(0, n)])
+    skew = skew.reshape(lead + (n * (m + n),))[..., : n * (m + n - 1)]
+    return skew.reshape(lead + (n, m + n - 1)).sum(axis=-2)
 
 
 class LimbField:
@@ -217,7 +216,7 @@ class LimbField:
     def batch_inv(self, a):
         """Montgomery-trick batch inversion over the leading axis would need
         masking for zeros; the Fermat pow is branch-free and parallel, so we
-        simply use it (same asymptotic cost on a saturated VPU)."""
+        simply use it (same asymptotic cost on saturated vector lanes)."""
         return self.inv(a)
 
     def select(self, cond, a, b):

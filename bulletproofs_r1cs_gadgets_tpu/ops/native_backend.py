@@ -1,6 +1,6 @@
 """Single-core native (C++) CPU backend — the Rust-engine stand-in.
 
-Implements the same backend interface as :class:`.pallas_backend.PallasBackend`
+Implements the same backend interface as :class:`.backend.DeviceBackend`
 (``phase_commitments`` / ``ipp_create`` / ``msm`` / ``msm_gens``) but routes
 every MSM, generator fold and scalar-mul to the single-threaded C++ group
 layer in ``native/bptpu_native.cpp`` (51-bit-limb field arithmetic and
@@ -9,7 +9,7 @@ Pippenger with dalek's window policy, wNAF-5 double-scalar folds).
 
 Two roles:
 
-1. **A real CPU prover** for deployments without a TPU — orders of
+1. **A real CPU prover** for deployments without an accelerator — orders of
    magnitude faster than the pure-Python host path.
 2. **The measured single-core baseline proxy** (BASELINE.md): the
    reference's engine (`lovesh/bulletproofs` fork of dalek,
@@ -17,7 +17,7 @@ Two roles:
    algorithms, so this backend's end-to-end prove time on the CS-2 circuit
    is a defensible stand-in for single-core Rust throughput — measured on
    the same machine, same circuit, no conversion-factor hand-waving.
-   ``bench.py`` divides the TPU rate by this rate to emit ``vs_baseline``.
+   ``bench.py`` divides the device rate by this rate to emit ``vs_baseline``.
 
 Proof bytes are identical to the host path's (same Fiat-Shamir schedule;
 pinned by ``tests/test_native_backend.py``).
@@ -224,7 +224,7 @@ class NativeBackend:
     # ------------------------------------------------------------------ IPP
     def ipp_create(
         self, transcript, Q, G_factors, H_factors, gens_share, padded_n,
-        a, b, meta=None,
+        a, b,
     ) -> InnerProductProof:
         """Mirror of :meth:`..core.ipp.InnerProductProof.create` (the dalek
         schedule: round-1 folds carry the outer G/H factors, later rounds

@@ -1,4 +1,4 @@
-"""Batched Poseidon permutation on TPU.
+"""Batched Poseidon permutation on the device.
 
 The native/circuit Poseidon pair lives in ``gadgets/poseidon.py`` (host,
 reference-exact); this module is the *throughput* path: thousands of
@@ -10,7 +10,7 @@ a ``lax.scan`` over a precomputed (rounds, width, 23) round-key array with a
 static full/partial round mask, so the compiled graph is one round long.
 Cube S-box only costs 2 muls; the inverse S-box needs a 252-step Fermat
 ladder per round (it is what the reference uses for all trees - the batch
-axis is what makes it pay on TPU).
+axis is what makes it pay on the device).
 """
 
 from __future__ import annotations

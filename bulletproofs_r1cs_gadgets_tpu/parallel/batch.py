@@ -12,8 +12,7 @@ host polynomial work run between device stages; then all B inner-product
 arguments run in lockstep log-rounds with one sync per round for the whole
 batch (``backend.ipp_create_batch``).  Device dispatch queues stay full
 while the host computes the next proof's scalars, so throughput approaches
-max(host, device) instead of host+device, and the per-sync latency (~60 ms
-on the remote TPU backend — the dominant term of a warm small proof)
+max(host, device) instead of host+device, and the per-sync latency
 amortises B-fold.
 
 Backends without fused batch methods (or ``backend=None``) fall back to a
@@ -60,10 +59,10 @@ def prove_provers(
     are unchanged (grouping only interleaves independent pipelines).
 
     ``inflight`` caps the number of proofs whose device state is live at
-    once (HBM scheduling: each in-flight VSMT-2-class IPP job owns capacity
-    arrays + multiple tables, ~0.5-0.9 GB — PERF_NOTES 'HBM accounting').
-    Waves beyond the cap queue and start as earlier waves retire, so B can
-    exceed the chip's in-flight ceiling without OOM.  Default: no cap
+    once (device-memory scheduling: each in-flight IPP job owns its folded
+    generator arrays).  Waves beyond the cap queue and start as earlier
+    waves retire, so B can exceed the device's in-flight ceiling without
+    OOM.  Default: no cap
     (every wave concurrent, the round-3 behavior)."""
     if backend is None or not hasattr(backend, "phase_commitments_batch"):
         return [p.prove(bp_gens, backend=backend) for p in provers]
@@ -110,8 +109,8 @@ def prove_provers(
     import os
     from concurrent.futures import ThreadPoolExecutor
 
-    # leave a core for the device-RPC machinery: oversubscribing the host
-    # (e.g. 8 workers on 4 cores) measurably REGRESSES batch throughput
+    # leave a core for the thread that dispatches device work:
+    # oversubscribing the host slows the batch down
     workers = host_workers or max(
         1, min((os.cpu_count() or 4) - 1, len(provers))
     )
@@ -140,7 +139,6 @@ def prove_provers(
         jobs.append((
             p.transcript, mid["Q"], mid["G_factors"], mid["H_factors"],
             st["gens"], mid["padded_n"], mid["l_vec"], mid["r_vec"],
-            mid["ipp_meta"],
         ))
     ipps = backend.ipp_create_batch(jobs)
     return [

@@ -1,25 +1,24 @@
-"""Batch-axis data parallelism for the production (Pallas) path.
+"""Batch-axis data parallelism: whole proofs placed on distinct devices.
 
 Proofs are embarrassingly parallel — each has its own Fiat-Shamir
-transcript and shares nothing with its batch peers — so the multi-chip
-layout for the fast kernels needs NO collectives: pin one backend instance
-per device and place whole proofs' dispatch streams on distinct devices
+transcript and shares nothing with its batch peers — so the multi-device
+layout needs NO collectives: pin one backend instance per device and place
+whole proofs' dispatch streams on distinct devices
 (``jax.default_device`` commits every array a backend uploads, so all its
 kernel dispatches follow).  Within a device, ``parallel.batch.prove_provers``
 still fuses that device's share of the batch (staged syncs + waves).
 
 This composes with the two other axes of SURVEY.md §2b N10:
 
-* points axis (``ShardedMsmBackend``): ONE proof's MSMs sharded over ICI —
-  for latency on a single huge proof;
-* batch axis (this module): throughput scaling, linear in devices, DCN-safe
-  (nothing crosses hosts but the final proof bytes);
+* points axis (``ShardedMsmBackend``): ONE proof's MSMs sharded over the
+  devices — for latency on a single huge proof;
+* batch axis (this module): throughput scaling, linear in devices
+  (nothing crosses devices but the final proof bytes);
 * multi-host: call :func:`bootstrap_distributed` first so every host sees
   the global device set, then hand each host its local slice of the batch.
 
 Proof bytes are unchanged by placement (per-proof transcript/rng order is
-untouched); ``__graft_entry__.dryrun_multichip`` phase C drives this on the
-virtual CPU mesh and asserts the per-device placement really happened.
+untouched).
 """
 
 from __future__ import annotations
@@ -33,9 +32,10 @@ from .batch import prove_provers
 
 def bootstrap_distributed(**kw) -> bool:
     """Multi-host bootstrap: initialize the JAX distributed runtime when a
-    cluster environment is present (GKE/Cloud TPU metadata or explicit
-    ``coordinator_address=...``); single-process runs return False and
-    proceed single-host.  Call once, before device queries."""
+    coordinator is given (``coordinator_address=...`` plus
+    ``num_processes`` and ``process_id``, or the ``JAX_COORDINATOR_ADDRESS``
+    environment variable); single-process runs return False and proceed
+    single-host.  Call once, before device queries."""
     try:
         if jax.process_count() > 1:  # already initialized
             return True
@@ -44,9 +44,7 @@ def bootstrap_distributed(**kw) -> bool:
     import os
 
     if not (kw.get("coordinator_address")
-            or os.environ.get("JAX_COORDINATOR_ADDRESS")
-            or os.environ.get("COORDINATOR_ADDRESS")
-            or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")):
+            or os.environ.get("JAX_COORDINATOR_ADDRESS")):
         return False
     jax.distributed.initialize(**kw)
     return True
@@ -97,8 +95,8 @@ def prove_provers_devices(
 
     ``backend_factory(device=...)`` (or ``backend_factory()``) builds one
     backend per device (each keeps its own generator/device caches, so
-    uploads land on its device); the default is the production
-    :class:`..ops.pallas_backend.PallasBackend`.  Per device, its group
+    uploads land on its device); the default is
+    :class:`..ops.backend.DeviceBackend`.  Per device, its group
     proves with the staged-fusion pipeline; groups run on threads
     (``sequential=True`` runs them one after another — e.g. on a CPU mesh
     where concurrent per-device XLA compiles are slow).  Returns proofs in
@@ -109,9 +107,9 @@ def prove_provers_devices(
     if devices is None:
         devices = jax.local_devices()
     if backend_factory is None:
-        from ..ops.pallas_backend import PallasBackend
+        from ..ops.backend import DeviceBackend
 
-        backend_factory = PallasBackend
+        backend_factory = DeviceBackend
     ndev = max(1, min(len(devices), len(provers)))
     devices = devices[:ndev]
 

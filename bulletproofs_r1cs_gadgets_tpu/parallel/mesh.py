@@ -1,13 +1,13 @@
-"""Device-mesh utilities for multi-chip proving.
+"""Device-mesh utilities for multi-device proving.
 
 The reference is a single-threaded library (SURVEY.md S2b N10); scaling is
-where the TPU rebuild adds value.  Two parallel axes map naturally onto a
+where an accelerator build adds value.  Two parallel axes map naturally onto a
 ``jax.sharding.Mesh``:
 
 * ``batch`` - independent proofs (data parallel; SURVEY.md S5 "batch-parallel
   proving").  Transcripts stay per-proof on host; all vector math batches.
 * ``points`` - the n-axis of MSMs (tensor-parallel analog): generator
-  vectors are partitioned across chips, each computes a partial MSM over
+  vectors are partitioned across devices, each computes a partial MSM over
   its shard, and the partial group elements are combined with a short
   all-gather + local point additions (a point sum is NOT a ``psum`` - the
   group law is not lane-wise integer addition - so we gather the 4x23-limb

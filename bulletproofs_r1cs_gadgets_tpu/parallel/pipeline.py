@@ -32,7 +32,6 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import PartitionSpec as PSpec
-from jax.experimental.shard_map import shard_map
 
 from ..ops.field import FQ, STORE
 from ..ops.curve import scalar_mul_bits, tree_reduce, point_add
@@ -96,7 +95,7 @@ def make_sharded_step(mesh):
         return digest, checksum, total
 
     return jax.jit(
-        shard_map(
+        jax.shard_map(
             step,
             mesh=mesh,
             in_specs=(
@@ -109,6 +108,6 @@ def make_sharded_step(mesh):
                 PSpec(),
                 PSpec(),
             ),
-            check_rep=False,
+            check_vma=False,
         )
     )

@@ -1,51 +1,32 @@
-"""Multi-chip MSM sharding: a proof-engine backend whose every device MSM
+"""Multi-device MSM sharding: a proof-engine backend whose every device MSM
 partitions the point axis over a ``jax.sharding.Mesh``.
 
-This is the tensor-parallel axis of SURVEY.md §2b N10 made real: the same
-``Prover.prove`` / ``Verifier.verify`` calls that run single-chip route
-their phase commitments, IPP L/R MSMs and the verifier mega-MSM through
+This is the tensor-parallel axis of SURVEY.md §2b N10: the same
+``Prover.prove`` / ``Verifier.verify`` calls that run on one device route
+their phase commitments, IPP L/R MSMs and the verifier combined MSM through
 ``shard_map`` — each device computes a windowed partial MSM over its point
-shard, the (4, 23)-limb partial sums ride one ``all_gather`` over ICI, and
-the handful of partials fold locally (point addition is not a ``psum``-able
+shard, the (4, 23)-limb partial sums ride one ``all_gather``, and the
+handful of partials fold locally (point addition is not a ``psum``-able
 monoid over int32 lanes, so the gather+fold costs a few hundred bytes and
 log-n adds).
 
 Built on the XLA-composed kernels (:mod:`..ops.msm`), so the identical
-code validates on a ``--xla_force_host_platform_device_count`` CPU mesh
-(``__graft_entry__.dryrun_multichip`` proves and verifies a real R1CS proof
-this way) and scales on a TPU pod mesh.
+code runs on a ``--xla_force_host_platform_device_count`` CPU mesh and on a
+mesh of GPUs.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as PSpec
-from jax.experimental.shard_map import shard_map
 
 from ..core.ipp import InnerProductProof
-from ..ops.backend import DeviceBackend, _bits_arr, _fold_with_scalars_jit
+from ..ops.backend import DeviceBackend, _bits_rows, _fold_with_scalars_jit
 from ..ops.field import STORE
 from ..ops.curve import point_add, identity_points, points_from_device
-from ..ops.msm import msm_chunk_impl, scalars_to_digits
-from ..utils.constants import L as _L_MOD
-
-
-def _bits_mat(vals: list[int]) -> np.ndarray:
-    """(n, 253) LSB-first bit matrix of python ints."""
-    return np.stack([_bits_arr(v) for v in vals])
-
-
-def _bits_rows(rows: np.ndarray) -> np.ndarray:
-    """(n, 4) u64 scalar rows -> (n, 253) LSB-first bit matrix (one
-    vectorized byte-view unpack, no per-element Python)."""
-    b = np.ascontiguousarray(rows, dtype="<u8").view(np.uint8)
-    bits = np.unpackbits(b.reshape(len(rows), 32), axis=1,
-                         bitorder="little")
-    return bits[:, :253].astype(np.int32)
+from ..ops.msm import _add, msm_chunk_impl, scalars_to_digits
 
 
 @jax.jit
@@ -66,26 +47,20 @@ class ShardedMsmBackend(DeviceBackend):
     ``shard_map`` graph compiles for exactly ONE shape regardless of the
     proof's MSM size schedule (the prover + IPP + verifier mega-MSM span
     ~10 distinct sizes; per-shape XLA compiles would dominate CPU-mesh
-    test time and TPU cold starts alike).  ``window`` sizes the in-kernel
-    multiple table: 4 on TPU; the CPU mesh tests pass 2 to keep the
+    test time and cold starts alike).  ``window`` sizes the in-kernel
+    multiple table: 4 by default; the CPU mesh tests pass 2 to keep the
     compiled graph small.
     """
 
-    def __init__(
-        self,
-        mesh: Mesh,
-        axis: str = "points",
-        min_device_n: int = 512,
-        chunk: int = 1 << 14,
-        window: int = 4,
-    ):
-        super().__init__(min_device_n=min_device_n)
+    def __init__(self, mesh: Mesh, axis: str = "points", **kw):
+        """``kw``: the DeviceBackend shape arguments (``min_device_n``,
+        ``chunk``, ``window``, ``fold_chunk``)."""
+        super().__init__(**kw)
+        chunk, window = self.chunk, self.window
         self.mesh = mesh
         self.axis = axis
         self.n_shards = mesh.shape[axis]
         assert chunk % self.n_shards == 0
-        self.chunk = chunk
-        self.window = window
 
         def sharded_msm(points, digits):
             # per-shard partial over the local point slice
@@ -97,12 +72,12 @@ class ShardedMsmBackend(DeviceBackend):
             return total
 
         self._sharded_msm = jax.jit(
-            shard_map(
+            jax.shard_map(
                 sharded_msm,
                 mesh=mesh,
                 in_specs=(PSpec(axis), PSpec(axis)),
                 out_specs=PSpec(),
-                check_rep=False,
+                check_vma=False,
             )
         )
 
@@ -121,7 +96,7 @@ class ShardedMsmBackend(DeviceBackend):
             )
             dev = jnp.concatenate([dev, pad_pts], axis=0)
             digits = np.concatenate(
-                [digits, np.zeros((m - n, nwin), dtype=np.int32)]
+                [digits, np.zeros((m - n, nwin), dtype=digits.dtype)]
             )
         digits = jnp.asarray(digits)
         total = None
@@ -130,7 +105,7 @@ class ShardedMsmBackend(DeviceBackend):
                 dev[off : off + self.chunk],
                 digits[off : off + self.chunk],
             )
-            total = part if total is None else point_add(total, part)
+            total = part if total is None else _add(total, part)
         return total
 
 
@@ -140,9 +115,7 @@ class BatchShardedBackend(ShardedMsmBackend):
     collectives — proofs share nothing), while each proof's MSMs partition
     their point axis over ``points`` with the inherited all_gather+fold.
 
-    This is the production layout for BASELINE's 4096-concurrent-proofs
-    config (SURVEY.md §2b N10a + N10b composed): on a v5p-16 the batch
-    axis spans hosts over DCN and the points axis rides ICI.  Per IPP
+    This composes the two axes of SURVEY.md §2b N10a + N10b.  Per IPP
     round the device computes all B L/R pairs in one SPMD dispatch; the
     B Fiat-Shamir transcripts advance on the host between rounds (64
     bytes per proof per round — the same host/device split as the
@@ -169,7 +142,7 @@ class BatchShardedBackend(ShardedMsmBackend):
             return total
 
         self._sharded_msm_batch = jax.jit(
-            shard_map(
+            jax.shard_map(
                 msm_b,
                 mesh=mesh,
                 in_specs=(
@@ -177,7 +150,7 @@ class BatchShardedBackend(ShardedMsmBackend):
                     PSpec(batch_axis, self.axis),
                 ),
                 out_specs=PSpec(batch_axis),
-                check_rep=False,
+                check_vma=False,
             )
         )
 
@@ -186,7 +159,7 @@ class BatchShardedBackend(ShardedMsmBackend):
         self, digits_b: np.ndarray, points_b: jnp.ndarray
     ) -> jnp.ndarray:
         """B same-size MSMs in one SPMD dispatch series: digits_b
-        (B, n, W) int32, points_b (B, n, 4, STORE) -> (B, 4, STORE)."""
+        (B, n, W) uint8, points_b (B, n, 4, STORE) -> (B, 4, STORE)."""
         B, n = digits_b.shape[0], digits_b.shape[1]
         m = -(-n // self.chunk) * self.chunk
         if m != n:
@@ -196,7 +169,7 @@ class BatchShardedBackend(ShardedMsmBackend):
             points_b = jnp.concatenate([points_b, pad_pts], axis=1)
             digits_b = np.concatenate(
                 [digits_b,
-                 np.zeros((B, m - n, digits_b.shape[2]), np.int32)],
+                 np.zeros((B, m - n, digits_b.shape[2]), digits_b.dtype)],
                 axis=1,
             )
         digits_b = jnp.asarray(digits_b)
@@ -206,7 +179,7 @@ class BatchShardedBackend(ShardedMsmBackend):
                 points_b[:, off : off + self.chunk],
                 digits_b[:, off : off + self.chunk],
             )
-            total = part if total is None else point_add(total, part)
+            total = part if total is None else _add(total, part)
         return total
 
     def _digits_rows(self, rows_list: list) -> np.ndarray:
@@ -288,9 +261,8 @@ class BatchShardedBackend(ShardedMsmBackend):
     # --------------------------------------------------------- batched IPP
     def ipp_create_batch(self, jobs: list[tuple]) -> list:
         """All per-round scalar math runs on the C++ scvec layer over
-        (n, 4) u64 arrays — no per-element Python list comprehensions
-        (VERDICT round-3 item 10): folds are ``scvec.axpby``/``scvec.mul``,
-        digit splits use the vectorized byte-view path, and the fold-bit
+        (n, 4) u64 arrays — no per-element Python list comprehensions:
+        folds are ``scvec.axpby``/``scvec.mul``, digit splits use the vectorized byte-view path, and the fold-bit
         matrices come from one ``np.unpackbits`` per vector."""
         from ..core import scvec as _scvec
 

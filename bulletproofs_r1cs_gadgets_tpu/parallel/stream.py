@@ -4,8 +4,8 @@ The BASELINE target workload is 4096 concurrent VSMT-2 proofs
 (BASELINE.md, workload defined by the reference's
 ``gadget_vsmt_2.rs:290`` test configuration).  ``prove_provers``
 (:mod:`.batch`) holds every prover in memory at once — at 4096 proofs
-that is ~60 GB of host witness state and far past the chip's ~12-job
-in-flight HBM ceiling (PERF_NOTES "HBM accounting").  ``prove_stream``
+that is ~60 GB of host witness state, and device memory bounds how many
+proofs can be in flight.  ``prove_stream``
 instead treats the batch as a QUEUE:
 
 * provers are built LAZILY in wave-sized groups (``make_prover(i)``,

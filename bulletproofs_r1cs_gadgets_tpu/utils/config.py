@@ -41,17 +41,13 @@ class TreeConfig:
 class EngineConfig:
     """Proof-engine + device-backend knobs.
 
-    The two thresholds are the measured host/device crossover points of
-    the respective backends (PERF_NOTES.md): the XLA-composed oracle
-    backend pays per-op dispatch so it needs larger vectors to win; the
-    fixed-shape Pallas chunk layer amortises dispatch and wins earlier.
+    ``min_device_n`` is the host/device crossover of ``DeviceBackend``:
+    smaller MSMs run on the host, where device dispatch would dominate.
     """
 
     gens_capacity: int = 819200  # reference's largest (gadget_vsmt_2.rs:290)
     party_capacity: int = 1  # all 14 reference call sites use 1
-    min_device_n: int = 512  # XLA oracle backend host/device crossover
-    pallas_min_device_n: int = 64  # Pallas chunk-layer crossover
-    use_pallas: bool = True
+    min_device_n: int = 512  # DeviceBackend host/device crossover
 
 
 @dataclass(frozen=True)

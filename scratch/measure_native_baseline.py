@@ -7,7 +7,7 @@ Workloads match the bench stages exactly:
   * poseidon2_prove_s  — Poseidon 2:1 preimage proof (stage 2 circuit)
   * vsmt2_prove_s      — depth-253 VSMT-2 proof, CS-2 (stage 3/4 circuit)
 
-Run standalone (CPU only; no TPU needed):
+Run standalone (CPU only; no accelerator needed):
   python scratch/measure_native_baseline.py
 """
 

@@ -1,10 +1,10 @@
 """Device-pinned batch placement (parallel/device_batch.py) on the CPU mesh.
 
-The heavy path (per-device PallasBackend placement on real chips) is driven
-by ``__graft_entry__.dryrun_multichip`` phase C; these tests pin the
-placement MECHANISM (arrays created inside a pinned backend land on its
-device) and the scheduling invariants (round-robin grouping, input-order
-results, byte-identical proofs vs the host path) without TPU kernels.
+These tests pin the placement MECHANISM (arrays created inside a pinned
+backend land on its device) and the scheduling invariants (round-robin
+grouping, input-order results, byte-identical proofs vs the host path);
+tests/test_device_parallel.py runs the same path with real device math,
+and ``chip_smoke.py --four-cards`` on four GPUs.
 """
 
 import numpy as np

@@ -1,8 +1,7 @@
 """Device-op correctness vs host oracles (CPU backend, XLA path).
 
-The Pallas kernels are TPU-only (exercised by bench.py and the TPU e2e
-flow); these tests cover the XLA compositions that serve as their oracle
-and run anywhere.  Heavier compiles are marked slow.
+The field and curve programs here are the ones XLA compiles for the GPU;
+heavier compiles are marked slow.
 """
 
 import random

@@ -10,9 +10,11 @@ from bulletproofs_r1cs_gadgets_tpu import (
 from bulletproofs_r1cs_gadgets_tpu.gadgets.r1cs_utils import constrain_lc_with_scalar
 from bulletproofs_r1cs_gadgets_tpu.parallel.batch import prove_batch, verify_batch
 from bulletproofs_r1cs_gadgets_tpu.parallel.mesh import make_mesh
+from device_circuits import small_device_backend
 
 PC = PedersenGens.default()
 BP = BulletproofGens(128)
+
 
 
 def test_prove_batch_factors():
@@ -54,7 +56,6 @@ def test_prove_provers_staged_matches_sequential():
     from bulletproofs_r1cs_gadgets_tpu.gadgets.r1cs_utils import (
         AllocatedQuantity,
     )
-    from bulletproofs_r1cs_gadgets_tpu.ops.backend import DeviceBackend
     from bulletproofs_r1cs_gadgets_tpu.parallel.batch import prove_provers
 
     class StreamRng:
@@ -112,7 +113,7 @@ def test_prove_provers_staged_matches_sequential():
         # host_workers=1: the stubbed entropy stream is shared across
         # provers, so cross-prover draw order must match the sequential run
         staged = prove_provers(
-            build(1), BP, backend=DeviceBackend(min_device_n=1 << 30),
+            build(1), BP, backend=small_device_backend(),
             host_workers=1,
         )
     finally:
@@ -187,7 +188,7 @@ def test_sharded_step_matches_host_oracles():
     """make_sharded_step on the 8-device CPU mesh: the dp witness digests
     must equal the host Poseidon Merkle chain, the tp MSM total must equal
     the host multiscalar_mul, and both must equal the single-device
-    proving_step (VERDICT r1 weak item 7)."""
+    proving_step."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -326,7 +327,6 @@ def test_prove_provers_waves_roundtrip():
     """waves=2 splits the batch into concurrently-driven pipelines; every
     proof must still verify and batch order must be preserved."""
     from bulletproofs_r1cs_gadgets_tpu import Prover, Transcript, Verifier
-    from bulletproofs_r1cs_gadgets_tpu.ops.backend import DeviceBackend
     from bulletproofs_r1cs_gadgets_tpu.parallel.batch import prove_provers
 
     vals = [(Scalar(3), Scalar(5)), (Scalar(7), Scalar(11)),
@@ -343,7 +343,7 @@ def test_prove_provers_waves_roundtrip():
         pubs.append((com_p, com_q, p_w * q_w))
 
     proofs = prove_provers(
-        provers, BP, backend=DeviceBackend(min_device_n=1 << 30), waves=2
+        provers, BP, backend=small_device_backend(), waves=2
     )
     assert len(proofs) == 4
     for proof, (com_p, com_q, r) in zip(proofs, pubs):
@@ -356,13 +356,12 @@ def test_prove_provers_waves_roundtrip():
 
 
 def test_prove_provers_inflight_cap_roundtrip():
-    """inflight caps concurrent wave groups (HBM scheduling): with 4
+    """inflight caps concurrent wave groups (device-memory scheduling): with 4
     proofs, waves=2 and inflight=2 the two groups run sequentially; proofs
     must be byte-identical to the uncapped run and all verify."""
     import numpy as np
 
     from bulletproofs_r1cs_gadgets_tpu import Prover, Transcript, Verifier
-    from bulletproofs_r1cs_gadgets_tpu.ops.backend import DeviceBackend
     from bulletproofs_r1cs_gadgets_tpu.parallel.batch import prove_provers
 
     vals = [(Scalar(3), Scalar(5)), (Scalar(7), Scalar(11)),
@@ -381,7 +380,7 @@ def test_prove_provers_inflight_cap_roundtrip():
             pubs.append((com_p, com_q, p_w * q_w))
         return provers, pubs
 
-    be = DeviceBackend(min_device_n=1 << 30)
+    be = small_device_backend()
     provers, pubs = build()
     capped = prove_provers(provers, BP, backend=be, waves=2, inflight=2)
     provers2, _ = build()

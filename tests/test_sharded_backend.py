@@ -1,5 +1,5 @@
 """Sharded-MSM backend on the virtual 8-device CPU mesh: real proofs, not
-toy MSMs (VERDICT round-1 item 4).
+toy MSMs.
 
 Every device MSM of the prover AND verifier is partitioned over the mesh's
 ``points`` axis; results must verify and also match the host backend's

@@ -1,7 +1,7 @@
 """Sparse-Merkle-tree tests: host trees (reference tests
 ``gadget_vsmt_2.rs:222-259``, ``gadget_vsmt_4.rs:325-360``,
 ``gadget_osmt.rs:293-353``) and circuit round trips at reduced depth;
-reference-size circuits under --run-slow (driven by bench.py on TPU).
+reference-size circuits under --run-slow (driven by bench.py on the GPU).
 """
 
 import random
